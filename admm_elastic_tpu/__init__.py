@@ -9,7 +9,7 @@ Dynamics, Overby et al., IEEE TVCG 2017):
   tets, strain-limited triangles, hard pins) run as batched XLA/Pallas
   kernels over struct-of-array element families,
 - the constant global system ``A = M + dt^2 D^T W^2 D`` is solved with a
-  TPU-friendly method (one-time equilibrated-inverse prefactor with
+  GPU-friendly method (one-time equilibrated-inverse prefactor with
   batched RHS, multicolor SOR Gauss-Seidel, Uzawa Schur-complement CG
   with dense or sparse ELL-PCG inner, matrix-free PCG with Jacobi or
   two-grid preconditioning, or augmented-Lagrangian PCG hard contact),

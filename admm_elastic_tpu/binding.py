@@ -24,7 +24,7 @@ NOSELFCOLLISION = 1 << 1
 LINEAR = 1 << 2
 NEOHOOKEAN = 1 << 3
 STVK = 1 << 4
-SPLINE = 1 << 5  # TPU extension: Xu-spline material family
+SPLINE = 1 << 5  # extension: Xu-spline material family
 
 _FLAG_TO_MODEL = {
     LINEAR: "linear",

@@ -46,8 +46,7 @@ class Hits:
     # the default whenever collision objects exist, src/Collider.hpp:158).
     # The hit-row gathers/scatters (x[p_vidx], .at[p_vidx].add) are then
     # the identity and every C/C^T apply below becomes pure elementwise
-    # work — XLA's arbitrary-index gather runs at ~3 GB/s on this TPU, so
-    # at 160k verts this removes ~0.3 ms from EVERY penalty-CG iteration.
+    # work: no arbitrary-index gather in any penalty-CG iteration.
     dense: bool = False
     # STATIC: dynamic colliders are registered. When False, d_mask is
     # identically False and the dynamic-row terms (including the d_face

@@ -1,6 +1,6 @@
 """Dynamic (self) collision: vertex vs deforming tet mesh.
 
-TPU-native equivalent of TetMeshCollision (src/DynamicObject.hpp:33-119):
+Vectorized equivalent of TetMeshCollision (src/DynamicObject.hpp:33-119):
 the reference rebuilds an AABB tree over the current tets every detect and
 does point-in-tet + rest-pose nearest-triangle per query vertex. Here both
 phases are dense batched tests (every query against every tet/face with
@@ -26,10 +26,10 @@ import jax.numpy as jnp
 import numpy as np
 
 
-# Crossover measured on TPU v5 lite: dense masked all-pairs point-in-tet
-# runs at ~0.6 ns/pair on the VPU while candidate gathers cost ~40 ns/row,
-# so the hash grid only wins for large meshes (and avoids the dense
-# path's O(H*T) memory).
+# Above this many collider tets the hash-grid broad phase replaces the
+# dense masked all-pairs point-in-tet test (whose memory is O(H*T)).
+# The crossover was measured on the previous accelerator; on the GPU it
+# is not measured yet.
 BROADPHASE_MIN_TETS = 32768
 CELL_CAP = 24
 # Max simultaneous penetrating vertices processed per collider per detect
@@ -224,7 +224,8 @@ def detect_dynamic(collider: TetMeshCollider, x, query_pts, query_vidx):
         cand_c = jnp.minimum(cand, t_total - 1)
         real = cand < t_total
         d = query_pts[:, None, :] - base[cand_c]  # [H,C,3]
-        b = jnp.einsum("hcij,hcj->hci", einv[cand_c], d)
+        b = jnp.einsum("hcij,hcj->hci", einv[cand_c], d,
+                       precision=jax.lax.Precision.HIGHEST)
         b0 = 1.0 - jnp.sum(b, axis=-1)
         bary4 = jnp.concatenate([b0[..., None], b], axis=-1)  # [H,C,4]
         inside = jnp.all(bary4 >= 0.0, axis=-1) & safe[cand_c] & real
@@ -239,7 +240,8 @@ def detect_dynamic(collider: TetMeshCollider, x, query_pts, query_vidx):
         broad_overflow = overflow
     else:
         d = query_pts[:, None, :] - base[None, :, :]  # [H,T,3]
-        b = jnp.einsum("tij,htj->hti", einv, d)  # [H,T,3]
+        b = jnp.einsum("tij,htj->hti", einv, d,
+                       precision=jax.lax.Precision.HIGHEST)  # [H,T,3]
         b0 = 1.0 - jnp.sum(b, axis=-1)
         bary4 = jnp.concatenate([b0[..., None], b], axis=-1)  # [H,T,4]
         inside = jnp.all(bary4 >= 0.0, axis=-1) & safe[None, :]

@@ -3,7 +3,7 @@
 Mirrors the reference obstacle set: analytic Floor and Sphere SDFs
 (src/PassiveObject.hpp:32-64) and mesh obstacles. The reference's
 PassiveMesh does BVH point-in-tet + nearest-triangle per query
-(src/PassiveObject.hpp:67-107); two TPU-native equivalents are provided:
+(src/PassiveObject.hpp:67-107); two vectorized equivalents are provided:
 
 - PassiveMeshExact — the reference's exact semantics with the BVH
   replaced by a fixed-capacity uniform-grid candidate table (exact
@@ -41,10 +41,10 @@ class Floor:
     def signed_distance(self, x):
         dx = x[..., 1] - self.y
         point = jnp.stack([x[..., 0], jnp.broadcast_to(self.y, x[..., 1].shape), x[..., 2]], axis=-1)
-        # NOTE: constant broadcast, NOT zeros().at[..., 1].set(1.0) — this
-        # environment's XLA:TPU build miscompiles that scatter-set to all
-        # zeros when fused into a larger program (silent wrong answer: the
-        # floor constraint rows vanish and bodies tunnel through).
+        # NOTE: constant broadcast, NOT zeros().at[..., 1].set(1.0) — one
+        # accelerator compiler (not the GPU's) miscompiled that scatter-set
+        # to all zeros when fused into a larger program (the floor
+        # constraint rows vanished and bodies passed through the floor).
         normal = jnp.broadcast_to(jnp.asarray([0.0, 1.0, 0.0], x.dtype), x.shape)
         return dx, point, normal
 
@@ -73,16 +73,14 @@ jax.tree_util.register_dataclass(Sphere, data_fields=("center", "rad"), meta_fie
 
 @dataclasses.dataclass(frozen=True)
 class PassiveMeshSDF:
-    """Voxel-grid SDF obstacle (TPU-native replacement for PassiveMesh).
+    """Voxel-grid SDF obstacle (vectorized replacement for PassiveMesh).
 
-    Packed lane layout (r4): ``vals4`` [Gx*Gy*Gz, 4] holds
+    Packed layout: ``vals4`` [Gx*Gy*Gz, 4] holds
     (sdf, d/dx, d/dy, d/dz) at every lattice node, node gradients baked by
     central differences host-side. A query is then ONE 8-row gather (the
     cube corners, constant flat offsets) + a trilinear blend of all four
-    channels — the r3 form re-sampled the value grid 7 times (center + 6
-    gradient offsets) = 56 corner gathers/query, and XLA:TPU gathers run
-    ~3 GB/s at any locality (DESIGN.md), so detection dominated mesh-
-    obstacle steps at scale (61-90 ms at 9.5k queries, OBSTACLE_LAB r3).
+    channels, instead of re-sampling the value grid 7 times (center + 6
+    gradient offsets) = 56 corner gathers/query.
     The normal is the interpolated node gradient instead of the gradient
     of the interpolant — both are O(h) approximations of the true normal
     and sit inside the measured O(h) accuracy envelope
@@ -169,9 +167,9 @@ class PassiveMeshSDF:
             [wx[..., di] * wy[..., dj] * wz[..., dk]
              for di in (0, 1) for dj in (0, 1) for dk in (0, 1)],
             axis=-1)  # [..., 8]
-        # Elementwise multiply-add (VPU), NOT einsum/matmul: the MXU's
-        # default f32 path is bf16 passes (env hazard 1) and this blend is
-        # contact geometry.
+        # Elementwise multiply-add, NOT einsum/matmul: a default-precision
+        # f32 product may run in reduced precision (TF32 on the GPU) and
+        # this blend is contact geometry.
         vals = jnp.sum(w[..., None] * rows, axis=-2)  # [..., 4]
         dx = vals[..., 0]
         n = vals[..., 1:]
@@ -242,7 +240,7 @@ class PassiveMeshExact:
     The reference resolves mesh obstacles with a BVH point-in-tet inside
     test plus nearest-surface-triangle projection per query, signing with
     the raw face normal (src/PassiveObject.hpp:67-107, :85-91 projection,
-    :84-88 inside test). Trees don't map to TPU; the equivalent here is a
+    :84-88 inside test). Trees don't vectorize; the equivalent here is a
     uniform grid of FIXED-CAPACITY candidate lists (masked, so shapes
     never depend on data):
 
@@ -280,8 +278,8 @@ class PassiveMeshExact:
     gather per query; this is ~K_f gathered candidate rows per query).
     """
 
-    # Packed per-triangle rows (r4): XLA:TPU gathers run ~3 GB/s at any
-    # locality, so the candidate loop gathers ONE [F,3,3] row per
+    # Packed per-triangle rows: gathers are the narrow phase's cost, so
+    # the candidate loop gathers ONE [F,3,3] row per
     # candidate (corners a,b,c) instead of three [F,3] tables, and ONE
     # [F,7,3] row per *selected* face for the pseudonormals
     # (face, vert a/b/c, edge ab/bc/ca) instead of three.
@@ -291,13 +289,11 @@ class PassiveMeshExact:
     face_count: jax.Array  # [C] int32
     # tet_count is the only piece of the tet tables kept on device: it is
     # the tier-1 occupancy gate and the fallback trigger. The [T,4,3]
-    # tet_pack / [C,Kt] tet_table of the pre-r4 point-in-tet scan were
-    # dead weight after the pseudonormal-sign rewrite (~30 MB at 512k
-    # tets threaded through every jitted step) and are no longer baked.
-    # Stored int8 0/1 (r5): nothing ever reads the magnitude, only > 0,
-    # and the tier-1 gate gathers one row per query lane over ALL V
-    # lanes every detection — int32 made that 4x the bytes at XLA:TPU's
-    # flat ~3 GB/s gather rate.
+    # tet_pack / [C,Kt] tet_table of an earlier point-in-tet scan are
+    # not baked (~30 MB at 512k tets through every jitted step).
+    # Stored int8 0/1: nothing ever reads the magnitude, only > 0, and
+    # the tier-1 gate gathers one row per query lane over ALL V lanes
+    # every detection — int32 would be 4x the gathered bytes.
     tet_count: jax.Array  # [C] int8 occupancy (0/1)
     origin: jax.Array  # [3]
     h: jax.Array  # scalar cell size
@@ -309,9 +305,8 @@ class PassiveMeshExact:
     capture_cells: float = 2.0
     fallback_lanes: int = 128  # deep-penetration fallback capacity (static)
     # Near-lane compaction capacity (static; 0 = dense). The narrow phase
-    # gathers ~Kf*36 B of candidate-triangle rows per query lane and
-    # XLA:TPU gathers run ~3 GB/s regardless of locality (DESIGN.md), so
-    # at scale its cost is pure gathered bytes. Most query lanes are
+    # gathers ~Kf*36 B of candidate-triangle rows per query lane, so at
+    # scale its cost is gathered bytes. Most query lanes are
     # nowhere near the obstacle: with near_lanes=K, a cheap tier-1 pass
     # (ONE int gather/lane: the cell's tet-candidate count) masks the
     # lanes that could possibly be penetrating — a point inside a tet
@@ -468,8 +463,8 @@ class PassiveMeshExact:
         # src/PassiveObject.hpp:84-91) and free, since cl/n are already
         # in hand. This replaced a per-lane point-in-tet scan over the
         # cell's candidate tets: Kt tet-pack rows (40 x 48 B = 1.9 KB
-        # per lane on the block slab) were ~6x the bytes of the whole
-        # face side at XLA:TPU's flat ~3 GB/s gather rate, and the tet
+        # per lane on the block slab) were ~6x the gathered bytes of the
+        # whole face side, and the tet
         # GEOMETRY added nothing — the sign only needs the TRUE closest
         # feature, which the capture guarantee (<= capture radius) or
         # the fallback (beyond it) supplies. The tet tables survive only
@@ -496,7 +491,7 @@ class PassiveMeshExact:
         # sign and projection stay exact at any depth. The fallback runs
         # UNCONDITIONALLY (keep() masks it to a no-op when no lane needs
         # it): its corners arrive as a broadcast of the whole soup — no
-        # gather — so the whole pass is ~[k_fb, F] streamed VPU work.
+        # gather — so the whole pass is ~[k_fb, F] streamed elementwise work.
         # The r4 form wrapped it in lax.cond "so shallow contact never
         # pays it", but obstacle_lab2 measured the cond-wrapped block at
         # 5.9 ms/call UNTAKEN at the 500k matrix geometry (~2.4 ms the

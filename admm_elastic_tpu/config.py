@@ -2,7 +2,7 @@
 
 Mirrors the reference ``Solver::Settings`` POD and its hand-rolled argv
 parser (reference: src/Solver.hpp:39-50, src/Solver.cpp:273-307) with the
-same flags and defaults, plus TPU-specific knobs (dtype, solver tolerances).
+same flags and defaults, plus extension knobs (dtype, solver tolerances).
 """
 
 from __future__ import annotations
@@ -16,8 +16,8 @@ import numpy as np
 LDLT = 0  # prefactored direct solve (no collisions allowed)
 NCMCGS = 1  # nodal-constrained multicolor Gauss-Seidel
 UZAWACG = 2  # Uzawa saddle-point CG
-PCG = 3  # TPU extension: matrix-free Jacobi-preconditioned CG (scalable)
-ALPCG = 4  # TPU extension: augmented-Lagrangian PCG hard contact (scalable)
+PCG = 3  # extension: matrix-free Jacobi-preconditioned CG (scalable)
+ALPCG = 4  # extension: augmented-Lagrangian PCG hard contact (scalable)
 
 
 @dataclasses.dataclass
@@ -36,7 +36,7 @@ class Settings:
     linsolver: int = LDLT  # -ls (0=direct, 1=NCMCGS, 2=UzawaCG, 3=PCG)
     constraint_w: float = -1.0  # -ck (-1 = auto)
 
-    # --- TPU-native extensions (not in the reference CLI) ---
+    # --- extensions (not in the reference CLI) ---
     dtype: Optional[np.dtype] = None  # None -> f64 if jax_enable_x64 else f32
     # Inner-solver iteration caps / tolerances. Reference values:
     # NCMCGS: 30 iters, tol 1e-10, omega 1.9 (src/NodalMultiColorGS.hpp:41-46)
@@ -49,7 +49,7 @@ class Settings:
     # Uzawa inner A^-1 operator. The reference prefactors sparse A with
     # SimplicialLDLT so UzawaCG scales to any mesh (src/LinearSolver.hpp:
     # 79-84, src/UzawaCG.hpp:92-120 needs only A^-1 applies); our dense
-    # equilibrated inverse is the fastest apply on the MXU for medium N
+    # equilibrated inverse is one dense matrix product per apply for medium N
     # but O(N^2) memory. "auto" = dense below uzawa_dense_max_verts,
     # sparse ELL-PCG (two-grid preconditioned, bounded inner iterations)
     # above; "direct"/"pcg" force a mode. Explicit "pcg" uses the
@@ -71,8 +71,8 @@ class Settings:
     # coarse level + damped-Jacobi smoothing; bounded iteration counts as
     # the mesh grows — prefer it for >~50k-vertex meshes or tight tols).
     pcg_precond: str = "jacobi"
-    # Direct solver application mode: "inv" = precomputed A^-1 as one MXU
-    # matmul per solve (fastest on TPU; default), "cho" = two batched
+    # Direct solver application mode: "inv" = precomputed A^-1 as one
+    # matrix product per solve (default), "cho" = two batched
     # triangular solves. "inv" is also the robust default because XLA:CPU
     # miscompiles the triangular-solve custom call inside while_loop bodies
     # (observed with jax 0.9.0: results corrupt from the 3rd iteration on;
@@ -175,7 +175,7 @@ class Settings:
 
 
 def default_dtype():
-    """f64 when jax_enable_x64 is on (parity testing), else f32 (TPU fast path)."""
+    """f64 when jax_enable_x64 is on (parity testing), else f32 (the device fast path)."""
     import jax
 
     return np.float64 if jax.config.jax_enable_x64 else np.float32

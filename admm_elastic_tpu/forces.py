@@ -29,7 +29,7 @@ class WindForce(ExplicitForce):
 
     Three application orders:
     - batched (default): every triangle reads the pre-kick velocities and
-      the per-triangle forces scatter-add — the parallel, TPU-native form.
+      the per-triangle forces scatter-add — the parallel, vectorized form.
     - sequential: each triangle reads velocities already updated by the
       previous triangles, exactly matching the reference's single-threaded
       loop (src/ExplicitForce.cpp:55-104; its OpenMP form races on v, so
@@ -42,7 +42,7 @@ class WindForce(ExplicitForce):
       colors apply in sequence, each as one batched update. Within a
       color the updates are independent (vertex-disjoint), so this has
       sequential's Gauss-Seidel stability at ~n_colors batched steps
-      instead of a W-step scan — the TPU-native stable form. The
+      instead of a W-step scan — the vectorized stable form. The
       serialization differs from the reference's file order, so results
       deviate from `sequential` only at the O((dt kick)^2) order-
       dependence of the model itself.

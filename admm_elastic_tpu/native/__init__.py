@@ -1,6 +1,6 @@
 """Native (C++) host-side helpers, loaded via ctypes.
 
-The reference's runtime is all C++; on the TPU build the device compute
+The reference's runtime is all C++; in this build the device compute
 path is XLA, but init-time host work with irregular access patterns —
 greedy graph coloring, adjacency construction, mesh file parsing — is
 native C++ (admm_elastic_tpu/native/geomcore.cpp), with numpy fallbacks in

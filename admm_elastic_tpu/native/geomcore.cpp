@@ -1,6 +1,6 @@
 // Native host-side geometry helpers for admm_elastic_tpu.
 //
-// The TPU framework keeps the device compute path in XLA; init-time host
+// This framework keeps the device compute path in XLA; init-time host
 // work with irregular memory access (graph coloring, adjacency) is faster
 // in C++ than in Python, matching the reference's native posture
 // (mcl::graphcolor::color_matrix consumed at src/NodalMultiColorGS.hpp:57).

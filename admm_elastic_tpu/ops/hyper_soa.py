@@ -1,7 +1,7 @@
 """SoA hyperelastic prox: signed SVD + projected Newton on scalar triples.
 
 The SoA counterpart of ops/prox.prox_tet_hyper / ops/newton.newton_prox —
-all quantities are [T]-shaped arrays (full TPU lane packing). Semantics
+all quantities are [T]-shaped arrays (one array per matrix entry). Semantics
 identical: quad-penalty anchor is the *signed* stretch, eps-inflation of
 collapsed elements, sign rectification, s>0 barrier with projected steps
 and an active-set reduction (reference: src/TetEnergyTerm.cpp:114-136 with
@@ -134,9 +134,10 @@ def _vgh_soa(model: str, mu, lam, kappa, k, s0):
 
 
 def newton_soa(value, grad, hess, s, n_iters: int, n_backtrack: int = 8,
-               tol: float = 1e-6, floor: float = 1e-9):
+               tol: float = 1e-6, floor: float = 1e-9, unroll: bool = True):
     """Projected active-set Newton on vec3-tuples (see ops/newton.py)."""
-    for _ in range(n_iters):
+
+    def newton_iter(s):
         g = grad(s)
         h6 = hess(s)
         # Active set: coordinates pinned at the barrier with inward gradient.
@@ -159,35 +160,37 @@ def newton_soa(value, grad, hess, s, n_iters: int, n_backtrack: int = 8,
         bad = jnp.abs(det) < 1e-300
         d = tuple(jnp.where(bad, gi, di) for gi, di in zip(g, d))
 
-        f0 = value(s)
-        best = s
-        best_f = f0
-        accepted = jnp.zeros_like(f0, dtype=bool)
-        t = jnp.ones_like(f0)
-        for _ in range(n_backtrack):
+        def backtrack(carry):
+            best, best_f, accepted, t = carry
             cand = tuple(jnp.maximum(si - t * di, floor) for si, di in zip(s, d))
             fc = value(cand)
             take = (~accepted) & (fc < best_f)
             best = tuple(jnp.where(take, ci, bi) for ci, bi in zip(cand, best))
             best_f = jnp.where(take, fc, best_f)
-            accepted = accepted | take
-            t = t * 0.5
+            return best, best_f, accepted | take, t * 0.5
+
+        f0 = value(s)
+        best, _, _, _ = soa.repeat(
+            backtrack, n_backtrack,
+            (s, f0, jnp.zeros_like(f0, dtype=bool), jnp.ones_like(f0)), unroll)
 
         gnorm2 = g[0] ** 2 + g[1] ** 2 + g[2] ** 2
         step2 = sum((bi - si) ** 2 for bi, si in zip(best, s))
         converged = (gnorm2 < tol * tol) | (step2 < tol * tol)
-        s = tuple(jnp.where(converged, si, bi) for si, bi in zip(s, best))
-    return s
+        return tuple(jnp.where(converged, si, bi) for si, bi in zip(s, best))
+
+    return soa.repeat(newton_iter, n_iters, s, unroll)
 
 
 def prox_tet_hyper_tuple(f, model: str, mu, lam, kappa, k, n_iters: int = 8,
-                         sweeps: int = 8):
+                         sweeps: int = 8, unroll: bool = True):
     """Hyperelastic prox on a 9-tuple of same-shape arrays (SoA entries).
 
-    Shape-agnostic core shared by the jnp path (arrays shaped [T]) and the
-    Pallas TPU kernel (VMEM rows shaped [1, BT]).
+    Shape-agnostic core shared by the jnp path (arrays shaped [T], loops
+    unrolled) and the Pallas kernel (one block of elements, loops kept as
+    loops: unroll=False).
     """
-    U, S, V = soa.signed_svd3_soa(f, sweeps=sweeps)
+    U, S, V = soa.signed_svd3_soa(f, sweeps=sweeps, unroll=unroll)
     s0 = S
     eps = 1e-6
     collapsed = (jnp.abs(S[0]) < eps) & (jnp.abs(S[1]) < eps) & (jnp.abs(S[2]) < eps)
@@ -195,7 +198,7 @@ def prox_tet_hyper_tuple(f, model: str, mu, lam, kappa, k, n_iters: int = 8,
     S = (S[0], S[1], jnp.abs(S[2]))
 
     value, grad, hess = _vgh_soa(model, mu, lam, kappa, k, s0)
-    S_opt = newton_soa(value, grad, hess, S, n_iters=n_iters)
+    S_opt = newton_soa(value, grad, hess, S, n_iters=n_iters, unroll=unroll)
     return soa.compose_usv(U, S_opt, V)
 
 

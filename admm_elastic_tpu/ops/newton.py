@@ -9,7 +9,7 @@ element solves the same 3-variable problem
 
 with analytic gradient and Hessian, via a fixed number of damped Newton
 iterations with a masked backtracking line search. All control flow is
-static, so millions of elements run in lockstep on the VPU/MXU.
+static, so millions of elements run in lockstep.
 
 The barrier semantics of the reference are preserved: candidate points with
 any s_i <= 0 evaluate to +inf (the reference returns FLT_MAX from value(),

@@ -15,8 +15,7 @@ Models (reference files):
 
 from __future__ import annotations
 
-from functools import partial
-
+import jax
 import jax.numpy as jnp
 
 from admm_elastic_tpu.materials import (
@@ -34,15 +33,16 @@ from admm_elastic_tpu.ops.svd3 import (
     signed_svd3_jacobi,
 )
 
-# SVD implementation for the prox paths, chosen at trace time:
-#  - TPU: branch-free Jacobi (pure VPU arithmetic — XLA's LAPACK-free SVD
-#    lowering on TPU is an order of magnitude slower for tiny matrices),
-#  - CPU/GPU: LAPACK/cuSOLVER via jnp.linalg.svd (full f64 accuracy for the
-#    inversion-recovery goldens; Jacobi on F^T F loses half the digits for
-#    near-collapsed elements).
-# Override with set_svd_impl("jacobi"|"lapack"|"auto") before initialize.
+# SVD implementation for the [T,3,3] prox paths, chosen at trace time:
+#  - "auto"/"lapack": LAPACK (CPU) / cuSOLVER (GPU) via jnp.linalg.svd —
+#    full f64 accuracy for the inversion-recovery goldens; Jacobi on
+#    F^T F loses half the digits for near-collapsed elements,
+#  - "jacobi": the branch-free batched Jacobi SVD.
+# The local step's own choice of path is system.elements.local_step_path,
+# which reads the same switch. Set with set_svd_impl before initialize.
 _SVD_IMPL = "auto"
 _SVD_SWEEPS = 10
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def set_svd_impl(impl: str):
@@ -52,12 +52,7 @@ def set_svd_impl(impl: str):
 
 
 def _signed_svd(F):
-    import jax
-
-    impl = _SVD_IMPL
-    if impl == "auto":
-        impl = "jacobi" if jax.default_backend() == "tpu" else "lapack"
-    if impl == "jacobi":
+    if _SVD_IMPL == "jacobi":
         return signed_svd3_jacobi(F, sweeps=_SVD_SWEEPS)
     return signed_svd3(F)
 
@@ -89,7 +84,7 @@ def prox_tet_linear(zi):
     The 0.5(p + zi) blend is valid because w^2 = k * volume.
     """
     U, _, V = _signed_svd(zi)
-    proj = U @ jnp.swapaxes(V, -1, -2)
+    proj = jnp.matmul(U, jnp.swapaxes(V, -1, -2), precision=_HIGHEST)
     return 0.5 * (proj + zi)
 
 
@@ -244,7 +239,8 @@ def prox_tet_hyper(zi, model: str, mu, lam, kappa, k, n_iters: int = 8):
 
     value, grad, hess = _hyper_value_grad_hess(model, mu, lam, kappa, k, s0)
     S_opt = newton_prox(value, grad, hess, S, n_iters=n_iters)
-    return jnp.einsum("...ij,...j,...kj->...ik", U, S_opt, V)
+    return jnp.einsum("...ij,...j,...kj->...ik", U, S_opt, V,
+                      precision=_HIGHEST)
 
 
 def energy_tet_hyper(F, model: str, mu, lam, kappa, k, vol):

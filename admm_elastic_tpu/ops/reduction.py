@@ -1,8 +1,8 @@
 """Matrix-free applies of the ADMM reduction matrix D and its transpose.
 
 The reference assembles a global sparse D (src/Solver.cpp:199-223) and each
-energy term slices its row block (src/EnergyTerm.hpp:130-140). On TPU we
-never materialize D: each element family applies its local reduction as a
+energy term slices its row block (src/EnergyTerm.hpp:130-140). We never
+materialize D: each element family applies its local reduction as a
 gather + small batched contraction, and D^T as the transposed contraction +
 segment scatter-add. Per-tet local reduction is the 9x12 operator
 S * edges_inv (src/TetEnergyTerm.cpp:50-71); per-tri the 6x9 operator
@@ -23,16 +23,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# einsum/matmul contractions run at HIGHEST precision: the MXU's default
-# f32 path uses bf16 passes whose error in the deformation gradients is
-# visible in trajectories (TPU-vs-CPU crossval).
+# einsum/matmul contractions run at HIGHEST precision: a default f32
+# product may run in reduced precision (TF32 on the GPU), whose error in
+# the deformation gradients is visible in trajectories (crossval).
 _PP = jax.lax.Precision.HIGHEST
 
 
 # --- Gather-based transpose apply ---------------------------------------------
 #
-# XLA lowers scatter-add with duplicate indices to a slow sequential/sorted
-# form on TPU. Since the mesh topology is static, we instead precompute, per
+# Scatter-add with duplicate indices serializes on colliding rows (and sums
+# in no fixed order). Since the mesh topology is static, we instead precompute, per
 # vertex, the fixed-width list of (element, corner) contributions incident to
 # it; D^T then becomes gather + sum over the width axis — pure vectorized
 # reads, deterministic summation order, no scatter at all.

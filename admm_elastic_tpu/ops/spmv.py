@@ -1,16 +1,15 @@
 """Banded (DIA) + rest-ELL hybrid storage for the global-step SpMV.
 
 Why: the ls=3/4 global step applies A via a padded-ELL row gather
-(`x[ell_cols]`), and arbitrary-index gathers are the one memory pattern
-this TPU does badly — measured ~70x off the HBM roofline at 160k tets
-(DESIGN.md r3 SpMV lab). But A's sparsity is a mesh graph: in a
+(`x[ell_cols]`), and arbitrary-index gathers read memory far below its
+streaming bandwidth. But A's sparsity is a mesh graph: in a
 locality-preserving vertex order almost every nonzero sits on one of a
 few dozen *constant diagonals* (offsets j - i). Entries on diagonal d can
 be applied with zero gathers:
 
     y += band_d * shift(x, d)        (elementwise fma over a slice)
 
-which streams at full HBM bandwidth. The hybrid keeps a small rest-ELL
+which streams at memory bandwidth. The hybrid keeps a small rest-ELL
 for entries off the popular diagonals, and optionally applies a
 reverse-Cuthill-McKee permutation first (scipy) when the native vertex
 order is not banded (e.g. scrambled mesh files): A x is then computed as
@@ -18,7 +17,7 @@ P^T (A_perm (P x)) with two [N]-row gathers instead of [N, K].
 
 The reference never faces this choice: its global solve is a prefactored
 sparse LDLT back-substitution on CPU (src/LinearSolver.hpp:87-90). The
-DIA split is the TPU-native answer to the same "exploit static topology
+DIA split is this system's answer to the same "exploit static topology
 at initialize time" idea.
 """
 

@@ -1,21 +1,15 @@
-"""Gather-free, lane-major D / D^T for structured (lattice/sheet) meshes.
+"""Gather-free, element-axis-major D / D^T for structured meshes.
 
-XLA:TPU executes arbitrary-index gathers at ~3 GB/s (DESIGN.md r3
-"Measurement methodology"), which makes the element pipeline's two
-gathers — x[inds] in D x and the vertex gather-table in D^T — the cost
-floor of the ADMM local step and rhs at large mesh sizes. For lattice
-meshes (make_tet_blocks: nx*ny*nz cells, 5 tets each, parity-alternating
-corner patterns — the reference's own beam/box generator) and regular
-cloth sheets both maps are STENCILS: every element corner sits at a
-constant grid offset from its cell, so D and D^T are pure shifted
-streams.
+For lattice meshes (make_tet_blocks: nx*ny*nz cells, 5 tets each,
+parity-alternating corner patterns — the reference's own beam/box
+generator) and regular cloth sheets, the two gathers of the element
+pipeline — x[inds] in D x and the vertex gather-table in D^T — are
+STENCILS: every element corner sits at a constant grid offset from its
+cell, so D and D^T are pure shifted streams with static addressing
+instead of arbitrary-index gathers and scatter-adds.
 
-v2 (lane-major): the first stencil implementation computed on
-[nx, ny, nz, 3]-shaped grids whose trailing dims waste ~97% of each
-(8, 128) vector tile — measured 1.25 ms for D^T W^2 at 160k tets where
-the traffic supports ~30 us (global_lab3). This version keeps EVERYTHING
-on [k, cells]-shaped arrays with the flat cell axis on lanes, the same
-layout that runs the banded SpMV at ~871 GB/s (ops/spmv.py):
+Everything stays on [k, cells]-shaped arrays with the flat cell axis
+last (contiguous), the layout of the banded SpMV (ops/spmv.py):
 
 - elements of a stencil family are reordered SLOT-MAJOR over a cell grid
   EMBEDDED AT VERTEX PITCH: element t = slot * X*Y*Z + p where
@@ -184,12 +178,6 @@ class FlatPlan:
         return out
 
 
-def _pad128(n: int) -> int:
-    """Round up to the TPU lane width (Pallas stencil kernels need the
-    per-slot lane blocks 128-aligned; the extra lanes are dead)."""
-    return -(-n // 128) * 128
-
-
 def tet_flat_plan(meta: StencilMeta) -> FlatPlan:
     base, X, Y, Z, pe, po, wrap = meta
     # Cells embed at vertex pitch in (j, k) only; the OUTERMOST axis needs
@@ -206,18 +194,6 @@ def tet_flat_plan(meta: StencilMeta) -> FlatPlan:
     src_cell = np.where(live, cell_id, -1).reshape(-1)  # [cells]
     par = ((ci + cj + ck) % 2 == 0).astype(np.float64).reshape(-1)
     dead = ~live.reshape(-1)
-    if not wrap:
-        # Pad the cell axis to the lane width so every per-slot block of
-        # the [S*cells] flat element array starts 128-aligned (consumed by
-        # ops/pallas_stencil.py). The pad cells are ordinary dead lanes.
-        # Wrap (ring) families keep the exact count: their (p+d) mod cells
-        # addressing is meaningful only at the true cell count.
-        pad = _pad128(cells) - cells
-        if pad:
-            src_cell = np.concatenate([src_cell, np.full((pad,), -1, np.int64)])
-            par = np.concatenate([par, np.zeros((pad,))])
-            dead = np.concatenate([dead, np.ones((pad,), bool)])
-            cells += pad
     src = np.empty((5 * cells,), np.int64)
     for s in range(5):
         src[s * cells:(s + 1) * cells] = np.where(
@@ -231,8 +207,6 @@ def _tet_geom(meta: StencilMeta):
     YZ = Y * Z
     nx = X if wrap else X - 1
     cells = nx * YZ  # flat cell array (vertex pitch in j/k; no +1 slab)
-    if not wrap:
-        cells = _pad128(cells)  # mirror tet_flat_plan's lane-width padding
     n_vblock = X * YZ  # the family's vertex block
     offs = tuple(di * YZ + dj * Z + dk for (di, dj, dk) in _CORNERS)
     return base, cells, n_vblock, offs, pe, po, wrap

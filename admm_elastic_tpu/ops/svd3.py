@@ -7,11 +7,11 @@ which becomes negative when F is inverted.
 
 Two implementations:
 
-- :func:`signed_svd3` — wraps ``jnp.linalg.svd`` (LAPACK on CPU, XLA's
-  iterative SVD on TPU), then applies the sign fix. Bit-accurate, used for
+- :func:`signed_svd3` — wraps ``jnp.linalg.svd`` (LAPACK on CPU,
+  cuSOLVER on GPU), then applies the sign fix. Bit-accurate, used for
   correctness tests.
 - :func:`signed_svd3_jacobi` — branch-free batched one-sided/two-sided
-  Jacobi built from fixed-count sweeps, the TPU fast path (the McAdams et
+  Jacobi built from fixed-count sweeps, the batched fast path (the McAdams et
   al. "minimal branching" scheme the reference cites as its intended fast
   path at src/FastSVD.hpp:21-34, redesigned for SIMD batching rather than
   scalar code). Accurate to ~1e-6 relative in f32 after 6 sweeps.
@@ -24,10 +24,9 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# All small batched matmuls here run at HIGHEST precision: the MXU's
-# default f32 matmul uses bf16 passes, whose error in the Gram matrices /
-# rotation composition measurably corrupts trajectories (TPU-vs-CPU
-# crossval: cloth drift 3e-3 -> 1e-5 after this change).
+# All small batched matmuls here run at HIGHEST precision: a default f32
+# matmul may run in reduced precision (TF32 on the GPU), whose error in
+# the Gram matrices / rotation composition corrupts trajectories.
 _PP = jax.lax.Precision.HIGHEST
 
 
@@ -79,7 +78,7 @@ def signed_svd3(F):
 
 
 # ---------------------------------------------------------------------------
-# Branch-free batched Jacobi SVD (TPU fast path)
+# Branch-free batched Jacobi SVD
 # ---------------------------------------------------------------------------
 
 
@@ -88,7 +87,7 @@ def _jacobi_eigh3(A, sweeps: int = 6):
 
     Returns (Q, w) with A ~= Q diag(w) Q^T. Branch-free: each rotation is
     computed with jnp.where masks, so the whole thing vectorizes over the
-    batch on the VPU. ``sweeps`` fixed -> static control flow under jit.
+    batch. ``sweeps`` fixed -> static control flow under jit.
     """
     dtype = A.dtype
     batch_shape = A.shape[:-2]
@@ -204,7 +203,7 @@ def polar_rotation_3x2(F):
 
     Equivalent to U @ [I2; 0] @ V^T from the thin SVD — the projection the
     triangle prox needs (src/TriEnergyTerm.cpp:79-84) — computed directly
-    from the 2x2 symmetric eigendecomposition of F^T F (TPU-friendly, no
+    from the 2x2 symmetric eigendecomposition of F^T F (batched, no
     LAPACK). Degenerate (collapsed) triangles fall back to Gram-Schmidt.
     """
     dtype = F.dtype

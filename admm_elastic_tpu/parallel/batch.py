@@ -1,7 +1,7 @@
 """Scenario batching + device-mesh sharding of the simulation step.
 
 The reference scales only via OpenMP threads on one node (SURVEY §2,
-parallelism inventory). The TPU-native scale axes are:
+parallelism inventory). The scale axes here are:
 
 - **scene axis**: independent scenes / parameter sweeps batched with vmap
   and sharded data-parallel over a `jax.sharding.Mesh` axis ("scene") —
@@ -254,8 +254,24 @@ def make_batched_step(solver, mesh: Optional[Mesh] = None, donate: bool = True,
         gravity=NamedSharding(mesh, P("scene")),
         overflow=NamedSharding(mesh, P("scene")),
     )
+    # Scenes are independent: each device steps only its own scenes
+    # (manual over "scene", no collective). The vertex axis, when sharded,
+    # stays with the SPMD partitioner (auto over "shard"); the fused local
+    # step kernel splits itself over it (ops/pallas_kernels.py).
+    n_scene = mesh.shape["scene"]
+    local_step = jax.shard_map(step, mesh=mesh, in_specs=P("scene"),
+                               out_specs=P("scene"), axis_names={"scene"},
+                               check_vma=False)
+
+    def sharded(batch: ScenarioBatch) -> ScenarioBatch:
+        if batch.x.shape[0] % n_scene:
+            raise ValueError(
+                f"{batch.x.shape[0]} scenes cannot be split evenly over the "
+                f"mesh's {n_scene}-device scene axis")
+        return local_step(batch)
+
     return jax.jit(
-        step,
+        sharded,
         in_shardings=(state_sharding,),
         out_shardings=state_sharding,
         donate_argnums=(0,) if donate else (),

@@ -620,8 +620,8 @@ class Solver:
             pins_batch = el.build_pin_batch(idxs, tgts, dtype=dtype)
 
         # Scatter-free D^T: per-family vertex->incident-corner gather tables
-        # (ops.reduction.build_gather_table; XLA lowers duplicate-index
-        # scatter-add poorly on TPU, a gather+sum over static topology wins).
+        # (ops.reduction.build_gather_table: a gather+sum over static
+        # topology instead of a duplicate-index scatter-add).
         from admm_elastic_tpu.ops import reduction as red
 
         # Flat-stencil families never take the gather D^T path, so their

@@ -7,5 +7,5 @@ Reference mapping (src/Solver.cpp:229-241, `-ls` flag):
                            and per-node contact-plane projection)
   2 UzawaCG             -> :mod:`uzawa` (Schur-complement CG on top of the
                            prefactored apply)
-  3 (TPU extension)     -> :mod:`pcg` (matrix-free Jacobi-PCG, shardable)
+  3 (extension)         -> :mod:`pcg` (matrix-free Jacobi-PCG, shardable)
 """

@@ -1,9 +1,9 @@
-"""Augmented-Lagrangian PCG contact solver (TPU extension, ls=4).
+"""Augmented-Lagrangian PCG contact solver (extension, ls=4).
 
-The TPU-native hard-contact global step. The reference offers two
+The vectorized hard-contact global step. The reference offers two
 contact-capable solvers (SURVEY 2.12-2.13): NCMCGS — sequential-by-color
 SOR with per-node projection (src/NodalMultiColorGS.hpp:94-142), ~240
-dependent sub-steps per solve, latency-bound on TPU — and UzawaCG — CG on
+dependent sub-steps per solve, latency-bound on an accelerator — and UzawaCG — CG on
 the contact Schur complement needing one full A^-1 apply per CG iteration
 (src/UzawaCG.hpp:92-120), ~11 inner solves per global step once A^-1 is
 itself iterative.

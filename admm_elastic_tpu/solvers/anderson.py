@@ -24,6 +24,8 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 @dataclasses.dataclass(frozen=True)
 class AAState:
@@ -100,15 +102,15 @@ def update(state: AAState, v: jax.Array, gv: jax.Array,
 
     # Normal equations (df df^T + lam I) theta = df f, masked slots get an
     # identity row (theta = 0 there).
-    gram = df @ df.T
-    rhs = df @ f
+    gram = jnp.matmul(df, df.T, precision=_HIGHEST)
+    rhs = jnp.matmul(df, f, precision=_HIGHEST)
     scale = jnp.maximum(jnp.trace(gram), 1.0)
     eye = jnp.eye(m, dtype=v.dtype)
     mask_d = jnp.where(valid[:, 0], 0.0, 1.0)
     gram = gram + (reg * scale) * eye + jnp.diag(mask_d)
     theta = jnp.linalg.solve(gram, rhs)
 
-    v_acc = gv - theta @ (dg * valid)
+    v_acc = gv - jnp.matmul(theta, dg * valid, precision=_HIGHEST)
     use_acc = have_prev & ok
     v_next = jnp.where(use_acc, v_acc, gv)
 

@@ -1,12 +1,11 @@
 """Prefactored direct solver (the reference's LDLTSolver, src/LinearSolver.hpp:59-92).
 
-TPU-native design: A is component-decoupled, so we factor the N x N
-single-component matrix once at initialize (host, f64) and per ADMM
-iteration do two triangular solves with the 3 coordinates as batched RHS.
-Optionally ("inv" mode) the explicit inverse is precomputed so the
-per-iteration solve is a single [N,N] @ [N,3] matmul on the MXU — the
-fastest option on TPU for medium N; "cho" keeps triangular solves for
-maximum accuracy.
+A is component-decoupled, so we factor the N x N single-component
+matrix once at initialize (host, f64) and per ADMM iteration do two
+triangular solves with the 3 coordinates as batched RHS. Optionally
+("inv" mode) the explicit inverse is precomputed so the per-iteration
+solve is a single [N,N] @ [N,3] matrix product; "cho" keeps triangular
+solves.
 
 Like the reference, this solver cannot handle collision constraints
 (Solver::initialize throws if obstacles are present with linsolver=0,
@@ -37,25 +36,12 @@ class DirectData:
     pin_vals: "jax.Array | None" = None  # [P, K]
     pin_diag: "jax.Array | None" = None  # [P]
     mode: str = "cho"
-    # MXU precision tier for the inv-mode matmul, chosen at prepare()
-    # time. "high" (3-pass bf16x3) halves the f32-emulation cost of the
-    # flagship's global step (-5.5 us of its 60 us ADMM iteration,
-    # benchmarks/FLAGSHIP_LAB_r5.json) at a one-apply relative error of
-    # 1.1e-5 vs HIGHEST's 1.9e-7 (benchmarks/precision_lab.py). That is
-    # safe ONLY on pinned systems, where the pin-row polish restores the
-    # stiff rows and the 8-step TPU trajectory stays 2.1e-4 from the
-    # HIGHEST path (10x inside the crossval bound). Unpinned inv systems
-    # keep "highest": their smallest eigenvalues are bare vertex masses
-    # and apply error on those modes feeds back exponentially through
-    # v = (x_new - x0)/dt (see Solver._refine_eff) — a 56x larger apply
-    # error is not worth re-proving that stability margin.
-    prec: str = "highest"
 
 
 jax.tree_util.register_dataclass(
     DirectData,
     data_fields=("mat", "scale", "pin_idx", "pin_cols", "pin_vals", "pin_diag"),
-    meta_fields=("mode", "prec"),
+    meta_fields=("mode",),
 )
 
 
@@ -97,7 +83,6 @@ def prepare(A_dense: np.ndarray, dtype, mode: str = "cho",
             mat=jnp.asarray(Binv, dtype=dtype),
             scale=jnp.asarray(s[:, None], dtype=dtype),
             mode="inv",
-            prec="high" if pin_rows is not None else "highest",
             **pin_kw,
         )
     L = np.linalg.cholesky(A_dense)
@@ -112,18 +97,16 @@ def prepare(A_dense: np.ndarray, dtype, mode: str = "cho",
 def solve(data: DirectData, b):
     """x = A^-1 b for b [N, k] (k=3 coordinates as batched RHS).
 
-    Never Precision.DEFAULT: the MXU's default f32 matmul runs in plain
-    bf16 passes (~3 fewer digits, one-apply rel err 5.6e-4 — see
-    benchmarks/precision_lab.py), which measurably corrupts trajectories
-    through the repeated solves (TPU-vs-CPU crossval drift 1e-2 vs 1e-5).
-    The tier between HIGH and HIGHEST is picked per-system at prepare()
-    time — see DirectData.prec.
+    The inv-mode product runs at Precision.HIGHEST (full f32). A lower
+    tier (TF32 on the GPU's tensor cores) keeps about three decimal
+    digits; the repeated solves feed that error into the trajectory, and
+    on unpinned systems the bare-mass modes amplify it across steps
+    (Solver._refine_eff). chip_smoke.py's kernels phase measures the
+    one-apply error of both tiers against an f64 solve.
     """
     if data.mode == "inv":
-        prec = (jax.lax.Precision.HIGH if data.prec == "high"
-                else jax.lax.Precision.HIGHEST)
         return data.scale * jnp.matmul(
-            data.mat, data.scale * b, precision=prec
+            data.mat, data.scale * b, precision=jax.lax.Precision.HIGHEST
         )
     y = jax.scipy.linalg.solve_triangular(data.mat, b, lower=True)
     return jax.scipy.linalg.solve_triangular(data.mat.T, y, lower=False)

@@ -1,6 +1,6 @@
 """Nodal-constrained multicolor Gauss-Seidel (reference NodalMultiColorGS).
 
-TPU re-design of src/NodalMultiColorGS.hpp: the reference walks color
+Vectorized re-design of src/NodalMultiColorGS.hpp: the reference walks color
 classes with an OpenMP loop per color, updating one 3-dof node at a time
 with SOR (omega=1.9), overriding pinned nodes, re-detecting passive
 collisions *per node inside the sweep* and projecting constrained updates
@@ -50,9 +50,8 @@ def _ortho_tangent(n):
     Mirrors NodalMultiColorGS::orthoG (src/NodalMultiColorGS.hpp:152-160).
     """
     cond = (n[..., 0] > 0.999)[..., None]
-    # Constant broadcasts, NOT zeros().at[..., k].set(1.0): this XLA:TPU
-    # build has been observed miscompiling that scatter-set to all zeros
-    # when fused (see collision/passive.py Floor.signed_distance).
+    # Constant broadcasts, NOT zeros().at[..., k].set(1.0): see
+    # collision/passive.py Floor.signed_distance.
     ez = jnp.broadcast_to(jnp.asarray([0.0, 0.0, 1.0], n.dtype), n.shape)
     ex = jnp.broadcast_to(jnp.asarray([1.0, 0.0, 0.0], n.dtype), n.shape)
     not_n = jnp.where(cond, ez, ex)

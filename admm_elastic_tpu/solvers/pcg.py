@@ -1,4 +1,4 @@
-"""Matrix-free Jacobi-preconditioned conjugate gradient (TPU extension, ls=3).
+"""Matrix-free Jacobi-preconditioned conjugate gradient (extension, ls=3).
 
 The scalable replacement for the prefactored direct solver when N x N dense
 is no longer reasonable: each iteration is one matrix-free A apply (gathers
@@ -26,14 +26,14 @@ class PCGData:
 
     - Banded/DIA (the fast path): band_offsets/bands hold the popular
       constant diagonals of A in a locality-preserving vertex order, and
-      the apply is shift+fma on a [3, N] transposed state — measured AT
-      the HBM roofline (~5 us at 160k tets, 871 GB/s; r3 hw_probe5).
+      the apply is shift+fma on a [3, N] transposed state, streamed at
+      memory bandwidth.
       Mesh graphs in lattice/RCM order put ~100% of nnz on a few dozen
       diagonals, so this covers every structured scene and, via the RCM
       permutation (perm/iperm), scrambled orderings too.
-    - Padded ELL row gather (fallback): XLA:TPU lowers arbitrary-index
-      gathers at ~3 GB/s regardless of locality (r3 hw_probe4), ~400x off
-      the roofline — kept only for graphs with no banded structure, and
+    - Padded ELL row gather (fallback): arbitrary-index gathers read far
+      below streaming bandwidth — kept only for graphs with no banded
+      structure, and
       for the thin "rest" of nnz off the popular diagonals (gather cost
       scales with N*K_rest, so a thin rest stays cheap).
 
@@ -60,7 +60,7 @@ class PCGData:
     # vertex to its aggregate; coarse_inv is the dense inverse of the
     # Galerkin coarse operator P^T A P (piecewise-constant P), so both
     # transfers are one segment_sum / one gather and the coarse solve is
-    # one MXU matmul. Iteration counts stay bounded as the mesh grows
+    # one dense matrix product. Iteration counts stay bounded as the mesh grows
     # (Jacobi CG grows ~O(1/h)): 160k-tet beam, tol 1e-6: 77 -> 18 iters.
     agg: Optional[jax.Array] = None  # i32 [N]
     # [C, Kc] vertex-gather table for the restriction P^T (scatter-free;

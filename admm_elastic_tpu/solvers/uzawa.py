@@ -1,6 +1,6 @@
 """Uzawa saddle-point solver: CG on the contact Schur complement.
 
-TPU re-design of the reference UzawaCG (src/UzawaCG.hpp:32-125):
+Vectorized re-design of the reference UzawaCG (src/UzawaCG.hpp:32-125):
 
     [ A  C^T ] [x]   [b]
     [ C  0   ] [y] = [c]
@@ -24,8 +24,12 @@ import jax.numpy as jnp
 
 from admm_elastic_tpu.collision import constraints as con
 
-# Inner warm start across Schur iterations: MEASURED AND REJECTED (r5,
-# benchmarks/uzawa_lab.py + UZAWA_LAB_r5.json). The CG recurrence gives
+
+def _dot(a, b):
+    return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST)
+
+# Inner warm start across Schur iterations: measured and rejected on the
+# previous accelerator. The CG recurrence gives
 # a free guess for the iterative inner (A^-1 C^T d_k = A^-1 C^T r_k -
 # beta_{k-1} q2_{k-1}), but on the beam-floor-uzawa-67k matrix scene it
 # bought 0.99x (the tol-terminated inner saves no iterations: successive
@@ -60,11 +64,11 @@ def solve(apply_Ainv, hits: con.Hits, ck, b0, x_guess, y, max_iters, tol):
     cp, cd = con.C_rhs(hits, ck)
     c = jnp.concatenate([cp, cd])
 
-    # NOTE: no lax.cond fast path for the zero-constraint case. This
-    # environment's XLA:TPU build miscompiles cond(pred, <branch with
-    # while_loop>, ...) when fused with the upstream detection program —
-    # the TRUE branch is skipped even with a verifiably true predicate
-    # (n_active()==15 returned from the same program). The constrained
+    # NOTE: no lax.cond fast path for the zero-constraint case. One
+    # accelerator compiler (not the GPU's) miscompiled cond(pred, <branch
+    # with while_loop>, ...) fused with the upstream detection program —
+    # the TRUE branch was skipped with a verifiably true predicate. The
+    # constrained
     # path degenerates correctly anyway when nothing is active: all C
     # rows are masked to zero, so r0 = 0 and the CG while_loop exits
     # after one iteration with x = A^-1 b, matching the reference's fast
@@ -99,14 +103,14 @@ def solve(apply_Ainv, hits: con.Hits, ck, b0, x_guess, y, max_iters, tol):
             q2 = apply_Ainv(
                 Ct(d), (-betap * q2p) if INNER_WARM_START else None)
             q3 = jnp.where(active, C(q2), 0.0)
-            denom = jnp.dot(d, q3)
+            denom = _dot(d, q3)
             bad = jnp.abs(denom) < tiny
-            alpha = jnp.where(bad, 0.0, jnp.dot(d, r) / jnp.where(bad, 1.0, denom))
+            alpha = jnp.where(bad, 0.0, _dot(d, r) / jnp.where(bad, 1.0, denom))
             x = x - alpha * q2
             yv = yv + alpha * d
             r = r - alpha * q3
-            small = jnp.dot(r, r) < tol2
-            beta = jnp.where(bad, 0.0, jnp.dot(r, q3) / jnp.where(bad, 1.0, denom))
+            small = _dot(r, r) < tol2
+            beta = jnp.where(bad, 0.0, _dot(r, q3) / jnp.where(bad, 1.0, denom))
             d = r - beta * d
             done = bad | small
             return (x, yv, r, d, q2, beta, k + 1, done)
@@ -156,15 +160,15 @@ def solve_traced(apply_Ainv, hits: con.Hits, ck, b0, x_guess, y, n_iters: int,
         x, yv, r, d = carry
         q2 = apply_Ainv(Ct(d))
         q3 = jnp.where(active, C(q2), 0.0)
-        denom = jnp.dot(d, q3)
+        denom = _dot(d, q3)
         bad = jnp.abs(denom) < tiny
-        alpha = jnp.where(bad, 0.0, jnp.dot(d, r) / jnp.where(bad, 1.0, denom))
+        alpha = jnp.where(bad, 0.0, _dot(d, r) / jnp.where(bad, 1.0, denom))
         x = x - alpha * q2
         yv = yv + alpha * d
         r = r - alpha * q3
-        beta = jnp.where(bad, 0.0, jnp.dot(r, q3) / jnp.where(bad, 1.0, denom))
+        beta = jnp.where(bad, 0.0, _dot(r, q3) / jnp.where(bad, 1.0, denom))
         d = r - beta * d
-        res = jnp.sqrt(jnp.dot(r, r))
+        res = jnp.sqrt(_dot(r, r))
         err = (jnp.linalg.norm(x_star - x) / err_denom
                if x_star is not None else jnp.asarray(0.0, dtype))
         return (x, yv, r, d), (res, err)

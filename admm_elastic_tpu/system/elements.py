@@ -29,19 +29,42 @@ import numpy as np
 from admm_elastic_tpu.materials import Lame
 from admm_elastic_tpu.ops import prox as prox_ops
 
-def _use_soa() -> bool:
-    """Trace-time choice of the SoA (TPU) vs AoS+LAPACK (CPU f64) prox path.
+# Local-step implementations (see local_step_path):
+#  - "lapack": [T,3,3] AoS prox with the LAPACK/cuSOLVER SVD
+#    (jnp.linalg.svd). Full f64 accuracy for the inversion-recovery and
+#    reference-parity goldens; Jacobi on F^T F loses half the digits for
+#    near-collapsed elements.
+#  - "jnp": SoA rows prox (ops/hyper_soa.py, branch-free Jacobi SVD) as
+#    plain jnp, fused by XLA.
+#  - "triton": the same SoA body as one Pallas kernel through Triton
+#    (ops/pallas_kernels.py); hyperelastic families only.
+LOCAL_STEP_PATHS = ("lapack", "jnp", "triton")
 
-    Follows the same switch as the SVD implementation
-    (ops.prox.set_svd_impl): 'jacobi' -> SoA, 'lapack' -> AoS, 'auto' ->
-    SoA on TPU only.
+
+def local_step_path(platform: str, dtype) -> str:
+    """Trace-time choice of the local-step implementation.
+
+    GPU f32 takes the kernel, the fastest of the three end to end on an
+    H100 (PERF.md); everything else takes the LAPACK/cuSOLVER path.
+    ``ops.prox.set_svd_impl`` overrides the choice: "lapack" forces the
+    AoS path, "jacobi" the plain-jnp SoA path. The Pallas interpreter
+    mode (tests) selects the kernel on any platform.
     """
-    import jax
+    from admm_elastic_tpu.ops import pallas_kernels
 
+    if pallas_kernels.interpret_mode():
+        return "triton"
     impl = prox_ops._SVD_IMPL
-    if impl == "auto":
-        return jax.default_backend() == "tpu"
-    return impl == "jacobi"
+    if impl == "lapack":
+        return "lapack"
+    if impl == "jacobi":
+        return "jnp"
+    gpu_f32 = platform == "gpu" and jnp.dtype(dtype) == jnp.dtype(jnp.float32)
+    return "triton" if gpu_f32 else "lapack"
+
+
+def _path(dtype) -> str:
+    return local_step_path(jax.default_backend(), dtype)
 
 
 # Selector matrices: rows are vertices, columns are rest-edge coordinates.
@@ -99,26 +122,10 @@ class TetBatch:
 
     def prox(self, zi, n_newton_iters: int = 8):
         """Prox of one batch. zi is [T, 3, 3] or SoA rows [9, T]."""
-        rows = zi.ndim == 2
-        from admm_elastic_tpu.ops import hyper_soa, pallas_kernels, soa
+        from admm_elastic_tpu.ops import hyper_soa, soa
 
-        if pallas_kernels.pallas_enabled(zi.dtype) and self.model != prox_ops.TET_LINEAR:
-            # TPU fastest path: one fused Pallas kernel for the whole
-            # SVD+Newton chain — a single HBM round-trip. (The linear prox
-            # is too short to amortize it; fused-jnp below.)
-            if rows:
-                z, _ = pallas_kernels.local_step_tet_hyper_pallas(
-                    zi, jnp.zeros_like(zi), self.model, self.mu, self.lam,
-                    self.kappa, self.bulk, n_iters=n_newton_iters,
-                )
-                return z
-            return pallas_kernels.prox_tet_hyper_pallas(
-                zi, self.model, self.mu, self.lam, self.kappa, self.bulk,
-                n_iters=n_newton_iters,
-            )
-        if _use_soa() or rows:
-            # SoA path (full lane packing; [T,3,3] tensors waste ~99% of
-            # each (8,128) vector tile). Rows input is already SoA.
+        rows = zi.ndim == 2
+        if rows or _path(zi.dtype) != "lapack":
             f = tuple(zi[i] for i in range(9)) if rows else soa.unpack33(zi)
             if self.model == prox_ops.TET_LINEAR:
                 out = soa.prox_tet_linear_tuple(f)
@@ -137,35 +144,23 @@ class TetBatch:
     def local_step_rows(self, dix_rows, u_rows, n_newton_iters: int = 8):
         """Fused local step on SoA rows [9, T]: returns (z, u_new).
 
-        zi = prox(dix + u); u_new = dix + u - zi. On TPU the hyperelastic
-        models run as ONE Pallas kernel (no transposes, dual update
-        included); elsewhere the same math in fused jnp.
+        zi = prox(dix + u); u_new = dix + u - zi, on the path that
+        local_step_path picks for this platform and dtype.
         """
-        from admm_elastic_tpu.ops import hyper_soa, pallas_kernels, soa
+        from admm_elastic_tpu.ops import pallas_kernels
 
-        use_aos = not _use_soa() and not pallas_kernels.pallas_enabled(dix_rows.dtype)
-        if use_aos:
-            # CPU f64 parity path (LAPACK SVD prox on [T,3,3]).
-            v = (dix_rows + u_rows).T.reshape(-1, 3, 3)
-            z = self.prox(v, n_newton_iters)
+        path = _path(dix_rows.dtype)
+        v = dix_rows + u_rows
+        if path == "lapack":
+            z = self.prox(v.T.reshape(-1, 3, 3), n_newton_iters)
             z_rows = z.reshape(-1, 9).T
-            return z_rows, dix_rows + u_rows - z_rows
-        if (pallas_kernels.pallas_enabled(dix_rows.dtype)
-                and self.model != prox_ops.TET_LINEAR):
+            return z_rows, v - z_rows
+        if path == "triton" and self.model != prox_ops.TET_LINEAR:
             return pallas_kernels.local_step_tet_hyper_pallas(
                 dix_rows, u_rows, self.model, self.mu, self.lam, self.kappa,
                 self.bulk, n_iters=n_newton_iters,
             )
-        v = dix_rows + u_rows
-        f = tuple(v[i] for i in range(9))
-        if self.model == prox_ops.TET_LINEAR:
-            out = soa.prox_tet_linear_tuple(f)
-        else:
-            out = hyper_soa.prox_tet_hyper_tuple(
-                f, self.model, self.mu, self.lam, self.kappa, self.bulk,
-                n_iters=n_newton_iters,
-            )
-        z = jnp.stack(out, axis=0)
+        z = self.prox(v, n_newton_iters)
         return z, v - z
 
     def energy(self, F):
@@ -232,19 +227,8 @@ class TriBatch:
 
     def local_step_rows(self, dix_rows, u_rows, n_newton_iters: int = 8):
         """Fused cloth local step on SoA rows [6, T]: (z, u_new)."""
-        del n_newton_iters
-        from admm_elastic_tpu.ops import pallas_kernels, soa
-
-        if pallas_kernels.pallas_enabled(dix_rows.dtype):
-            return pallas_kernels.local_step_tri_pallas(
-                dix_rows, u_rows, self.limit_min, self.limit_max
-            )
         v = dix_rows + u_rows
-        z = jnp.stack(
-            soa.prox_tri_tuple(tuple(v[i] for i in range(6)),
-                               self.limit_min, self.limit_max),
-            axis=0,
-        )
+        z = self.prox(v, n_newton_iters)
         return z, v - z
 
     def energy(self, F):
@@ -326,7 +310,7 @@ def build_tet_batch(
     weight = np.sqrt(k * vol)
     T = tets.shape[0]
     stencil = None
-    if lattice_dims is not None and not os.environ.get("ADMM_TPU_NO_STENCIL"):
+    if lattice_dims is not None and not os.environ.get("ADMM_NO_STENCIL"):
         from admm_elastic_tpu.ops import stencil as stencil_mod
 
         stencil = stencil_mod.verify_lattice(tets, lattice_dims,
@@ -410,7 +394,7 @@ def build_tri_batch(
     weight = np.sqrt(k * area)
     T = tris.shape[0]
     stencil = None
-    if detect_stencil and not os.environ.get("ADMM_TPU_NO_STENCIL"):
+    if detect_stencil and not os.environ.get("ADMM_NO_STENCIL"):
         from admm_elastic_tpu.ops import stencil as stencil_mod
 
         stencil = stencil_mod.verify_tri_grid(tris, base=vertex_offset,

@@ -1,7 +1,7 @@
 """State checkpoint/resume.
 
 The reference has none (SURVEY §5): its full state is (m_x, m_v). Long
-batched TPU sweeps warrant real checkpointing; the SimState pytree is the
+batched device sweeps warrant real checkpointing; the SimState pytree is the
 entire checkpoint surface.
 """
 

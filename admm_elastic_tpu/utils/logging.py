@@ -2,7 +2,7 @@
 
 The reference opt-in tracer records, per inner iteration, the normalized
 error against a known solution x_star plus wall-clock, and the final
-residual ||Ax - b||. The TPU equivalent runs the inner solver once with a
+residual ||Ax - b||. The equivalent here runs the inner solver once with a
 fixed iteration budget and returns the whole error trace as a device array
 (a scan output), so tracing costs one extra solve rather than per-iteration
 host sync.

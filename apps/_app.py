@@ -21,6 +21,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from admm_elastic_tpu import Settings  # noqa: E402
+from admm_elastic_tpu.utils.device import setup_compile_cache  # noqa: E402
 
 
 def parse_cli(settings: Settings, extra=None):
@@ -61,7 +62,13 @@ def parse_cli(settings: Settings, extra=None):
     if args.ck is not None:
         settings.constraint_w = args.ck
     if args.cpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
+        # jax is already imported (Settings above), so the environment
+        # variable would come too late; the config update still applies
+        # before the first backend use.
+        import jax
+
+        jax.config.update("jax_platforms", "cpu")
+    setup_compile_cache()
     return args
 
 

@@ -1,15 +1,18 @@
-"""TPU-vs-CPU cross-validation: same f32 program, both backends.
+"""GPU-vs-CPU cross-validation: same f32 program, both backends.
 
-The CPU test suite cannot see TPU-only fusion miscompiles (one zeroed the
-floor-contact normals and bodies tunneled, caught only on hardware), so
-this sweep runs every solver mode x material x feature combination for a
-few steps on the accelerator AND on the host CPU in f32 and compares
-trajectories. Agreement is expected to f32-reassociation noise (the TPU
-prox path uses the SoA/Pallas kernels while CPU f32 uses the same SoA
-math, so divergence beyond ~1e-3 relative on these short stable scenes
-indicates a real defect).
+The CPU test suite cannot see miscompiles that happen only in the
+accelerator's compiler (on the previous accelerator one zeroed the
+floor-contact normals and bodies passed through the floor), so this sweep
+runs every solver mode x material x feature combination for a few steps
+on the GPU AND on the host CPU in f32 and compares trajectories. Both
+backends run the same SoA prox math: the GPU its own path (the Pallas
+kernel for hyperelastic tets), the CPU the plain-jnp body
+(set_svd_impl("jacobi")), so divergence beyond the per-scene bound
+(bound_for) indicates a real defect.
 
-Run: python benchmarks/crossval.py  (driver/TPU environment)
+Run: python benchmarks/crossval.py [--out FILE]  (needs a GPU). One CPU
+child process computes every scene's reference trajectory with
+JAX_PLATFORMS=cpu, so it never opens the card.
 """
 
 import os
@@ -19,6 +22,9 @@ import json
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "data")
+
 SCENES = [
     # (name, kwargs) — kwargs may carry steps= (default 8).
     ("beam_linear_ldlt", dict(kind="beam", model="linear", ls=0)),
@@ -26,12 +32,11 @@ SCENES = [
     ("beam_stvk_ldlt", dict(kind="beam", model="stvk", ls=0)),
     ("beam_spline_ldlt", dict(kind="beam", model="spline", ls=0)),
     ("beam_nh_pcg", dict(kind="beam", model="neohookean", ls=3)),
-    # 1-step variants of the chaotic NH-PCG scenes (VERDICT r3 weak #3):
-    # the 8-step trajectories are measurably chaotic (bound 1e-2, see
-    # below), which blunts miscompile sensitivity on exactly the newest
-    # code paths (flat/ring stencil, circular bands, lane-major CG). One
-    # step has no room for Lyapunov growth — measured 1-step backend
-    # divergence is ~7e-6, so these run at a tight 1e-4 bound.
+    # 1-step variants of the chaotic NH-PCG scenes: the 8-step
+    # trajectories are measurably chaotic (bound 1e-2, see bound_for),
+    # which blunts miscompile sensitivity on the flat/ring stencil,
+    # circular bands and CG paths. One step has no room for Lyapunov
+    # growth, so these run at a tight bound.
     ("beam_nh_pcg_1step", dict(kind="beam", model="neohookean", ls=3,
                                steps=1)),
     ("torus_nh_pcg_1step", dict(kind="torus", model="neohookean", ls=3,
@@ -45,22 +50,22 @@ SCENES = [
     ("selfcollision_gs", dict(kind="boxes", model="linear", ls=1)),
     ("sphere_obstacle_gs", dict(kind="sphere", model="linear", ls=1)),
     ("sdf_obstacle_gs", dict(kind="sdf", model="linear", ls=1)),
-    # Tier-1 near-lane compaction (r4): near_lanes < n_verts engages the
+    # Tier-1 near-lane compaction: near_lanes < n_verts engages the
     # min-corner / candidate-count gate + top_k compaction + scatter-back
     # on the accelerator. Hit semantics are bit-equal to dense by design
     # (test_contact.py proves it on CPU); these scenes prove the compacted
-    # program also survives XLA:TPU fusion.
+    # program also survives the accelerator's compiler.
     ("sdf_obstacle_compact_gs", dict(kind="sdf", model="linear", ls=1,
                                      compact=32)),
     ("exactmesh_obstacle_gs", dict(kind="exactmesh", model="linear", ls=1)),
     ("exactmesh_compact_gs", dict(kind="exactmesh", model="linear", ls=1,
                                   compact=32)),
-    # Deep-penetration fallback path (r4): a violent drop drives verts
+    # Deep-penetration fallback path: a violent drop drives verts
     # beyond the exact grid's capture radius, exercising the lax.cond +
     # top_k compaction + scatter-back fallback on the accelerator.
     ("exactmesh_deep_gs", dict(kind="exactmesh_deep", model="linear", ls=1)),
     ("torus_nh_pcg", dict(kind="torus", model="neohookean", ls=3)),
-    # Real reference mesh (r5, VERDICT #6): the reference's own
+    # Real reference mesh: the reference's own
     # bunny_1124.node/.ele verbatim — an irregular non-lattice tet mesh,
     # so the gather (non-stencil) element path + RCM banding run on a
     # mesh the builder didn't generate. 1-step NH at the tight bound plus
@@ -68,11 +73,9 @@ SCENES = [
     ("bunny_nh_pcg_1step", dict(kind="bunny", model="neohookean", ls=3,
                                 steps=1)),
     ("bunny_linear_ldlt", dict(kind="bunny", model="linear", ls=0)),
-    # Batched/chunked scale-out path (r5, VERDICT #5): the scale-out
-    # number of record runs through make_batched_step +
-    # _debloat_for_throughput — a vmap-axis lowering with CPU tests but
-    # (pre-r5) zero TPU-vs-CPU trajectory crossvalidation. S=4 scenes,
-    # mixed stiffness + gravity, floor contact through AL-PCG.
+    # Batched scale-out path: make_batched_step + _debloat_for_throughput
+    # (a vmap-axis lowering). S=4 scenes, mixed stiffness + gravity,
+    # floor contact through AL-PCG.
     ("batched_contact_alpcg", dict(kind="batched", model="linear", ls=4)),
 ]
 
@@ -81,15 +84,17 @@ STEPS = 8
 
 def run_scene(kind, model, ls, wind=False, steps=STEPS, compact=0):
     import numpy as np
+    import jax
     import jax.numpy as jnp
 
     from admm_elastic_tpu.ops import prox as prox_ops
 
-    # Force the same SVD/prox implementation on both backends (CPU would
-    # otherwise pick the LAPACK path); remaining divergence is pure
-    # XLA-reassociation noise, so anything beyond the threshold is a
-    # backend miscompile.
-    prox_ops.set_svd_impl("jacobi")
+    # The same SVD/prox math on both backends: the GPU's own f32 path, and
+    # on the CPU (which would otherwise pick the LAPACK path) the plain-jnp
+    # SoA body; remaining divergence is reassociation noise, so anything
+    # beyond the bound is a backend miscompile.
+    prox_ops.set_svd_impl("jacobi" if jax.default_backend() == "cpu"
+                          else "auto")
 
     from admm_elastic_tpu import Lame, Settings, Solver, binding
     from admm_elastic_tpu.collision.passive import Floor
@@ -173,7 +178,7 @@ def run_scene(kind, model, ls, wind=False, steps=STEPS, compact=0):
     elif kind == "bunny":
         from admm_elastic_tpu.geometry.io import load_elenode
 
-        mesh = load_elenode("/root/reference/samples/data/bunny_1124")
+        mesh = load_elenode(os.path.join(_DATA, "bunny_1124"))
         mesh.flags = binding.NOSELFCOLLISION | flag
         binding.add_tetmesh(solver, mesh, Lame.soft_rubber(), verbose=False)
         # Pin the bottom band (the feet) and let the body hang.
@@ -220,102 +225,122 @@ def run_scene(kind, model, ls, wind=False, steps=STEPS, compact=0):
     return np.asarray(solver.x, np.float64)
 
 
-def main():
-    import argparse
+def bound_for(name):
+    """Relative-error bound for one scene (GPU f32 vs CPU f32).
 
+    The default 2e-3 is ~300x the typical backend-reassociation noise.
+    The NH-PCG scenes' f32 trajectories are measurably chaotic: a single
+    benign op reordering (stencil vs gather D, same backend, same
+    compiler) differs 7.1e-6 after one step and 3.1e-3 after the 8 steps
+    compared here — Lyapunov amplification ~2x/step. The torus (pinned at
+    one ring, floppier) is the same class: every individual op agrees
+    bit for bit across backends on identical inputs while the fused step
+    wanders 1.6e-4 (step 1) to ~5e-3 (step 7), and swapping any op
+    ordering (bands vs ELL, stencil vs gather) redraws the outcome
+    between 2e-5 and 4e-3. Their bound is 1e-2: it still catches the
+    miscompile class this harness exists for (O(1) divergence or NaNs)
+    without flagging rounding-profile changes. Sensitivity on those code
+    paths comes from the *_1step variants.
+
+    bunny_nh_pcg_1step: 1e-2, from XLA's GPU build of the jnp prox,
+    which reads 6.5e-3 against the CPU (H100). D x agrees with the CPU to
+    1.6e-6, but the f32 prox is ill-conditioned on ~50 of the bunny's
+    3460 irregular elements (under a 1% perturbation the same jnp body
+    built for the GPU and for the CPU differs by up to 0.066 per entry
+    there), and 60 fixed PCG iterations on the 777-vertex pin-stiffened
+    operator (~1e5 diagonal ratios) amplify it. The Pallas kernel reads
+    3.1e-3 with round-to-nearest division and square root, and read
+    2.6e-2 while Triton approximated them (div.full, sqrt.approx): this
+    scene is the one that catches a kernel's rounding. torus_nh_pcg_1step: one step of a benign
+    same-backend op reordering already moves the torus 1.6e-4; 1e-3 is
+    ~6x that floor and 10x tighter than the 8-step bound. The other
+    1-step scenes' floor is ~7e-6: bound 1e-4.
+    """
+    if name in ("beam_nh_pcg", "torus_nh_pcg"):
+        return 1e-2
+    if name == "bunny_nh_pcg_1step":
+        return 1e-2
+    if name == "torus_nh_pcg_1step":
+        return 1e-3
+    if name.endswith("_1step"):
+        return 1e-4
+    return 2e-3
+
+
+def cpu_reference(out_path):
+    """Every scene on the CPU backend in this process -> one .npz file."""
+    import jax
     import numpy as np
 
-    if os.environ.get("CROSSVAL_CHILD"):
-        # CPU child: compute one scene, dump to file.
-        import jax
+    jax.config.update("jax_platforms", "cpu")
+    np.savez(out_path, **{name: run_scene(**kw) for name, kw in SCENES})
 
-        jax.config.update("jax_platforms", "cpu")
-        idx = int(os.environ["CROSSVAL_CHILD"]) - 1
-        name, kw = SCENES[idx]
-        x = run_scene(**kw)
-        np.save(os.environ["CROSSVAL_OUT"], x)
-        return
 
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", type=str, default=None,
-                    help="write the per-scene record to this JSON file "
-                         "(the committed CROSSVAL_r{N}.json artifact)")
-    args = ap.parse_args()
+def start_cpu_reference(out_path):
+    """Start the CPU reference in a child that never opens the card."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", CROSSVAL_CHILD=out_path)
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__)],
+                            env=env)
 
-    records = []
-    failures = []
-    for i, (name, kw) in enumerate(SCENES):
-        out = f"/tmp/crossval_{name}.npy"
-        env = dict(os.environ, CROSSVAL_CHILD=str(i + 1), CROSSVAL_OUT=out)
-        subprocess.run([sys.executable, os.path.abspath(__file__)],
-                       check=True, env=env, timeout=560)
-        cpu = __import__("numpy").load(out)
-        acc = run_scene(**kw)
-        scale = max(abs(cpu).max(), 1e-9)
-        err = abs(acc - cpu).max() / scale
-        # Per-scene bound: the default 2e-3 is ~300x the typical
-        # backend-reassociation noise. The NH-PCG scenes are the ones
-        # whose f32 trajectories are measurably chaotic: a single benign
-        # op-reordering (stencil vs gather D, SAME backend) differs
-        # 7.1e-6 after one step and 3.1e-3 after the 8 steps compared
-        # here (measured r3, /tmp/stencil_check.py protocol) — Lyapunov
-        # amplification ~2x/step. The torus (floppier: pinned at one
-        # ring) is the same class: benchmarks/torus_bisect2.py measured
-        # every INDIVIDUAL op bit-identical across backends (rel_err
-        # 0.0 for Dx/DtW2/apply/apply_T on identical inputs) while the
-        # fused step wanders 1.6e-4 (step 1) to ~5e-3 (step 7), and
-        # torus_bisect.py showed swapping ANY op ordering (bands<->ELL,
-        # stencil<->gather) redraws the outcome between 2e-5 and 4e-3.
-        # Their bound is therefore 1e-2: still catches the miscompile
-        # class this harness exists for (the fusion bugs found in r1/r2
-        # produced O(1) divergence or NaNs), without flagging
-        # rounding-profile changes. Miscompile SENSITIVITY on those code
-        # paths comes from their *_1step variants: one step has no room
-        # for Lyapunov growth (measured ~7e-6), bound 1e-4.
-        if name in ("beam_nh_pcg", "torus_nh_pcg"):
-            bound = 1e-2
-        elif name == "bunny_nh_pcg_1step":
-            # Measured floor, NOT a miscompile: benchmarks/bunny_bisect.py
-            # (BUNNY_BISECT_r5.json) shows the banded apply_T and A_mv on
-            # the bunny operator agree across backends to f32 noise
-            # (1.1e-7 / 5.3e-8) while 60 FIXED PCG iterations amplify
-            # that to 3.9e-4 and the fused 1-step to 5.96e-4 — the
-            # 777-vert irregular mesh's pin-stiffened operator (~1e5
-            # diagonal ratios) makes the Krylov iteration itself the
-            # amplifier, where the lattice scenes' 1-step floor is 1e-5
-            # class. 2e-3 is ~3x the measured floor; the miscompile
-            # class this harness catches (O(1) divergence, NaNs) clears
-            # it by 3+ orders.
-            bound = 2e-3
-        elif name == "torus_nh_pcg_1step":
-            # The torus's 1-step reassociation floor is higher than the
-            # beam's: torus_bisect2 (r3) measured 1.6e-4 after ONE step
-            # from a benign same-backend op reordering, and the first
-            # r4 on-chip run landed at 1.56e-4 — right on that floor.
-            # 1e-3 is ~6x the floor and 10x tighter than the 8-step
-            # bound; the miscompile class this harness catches (fusion
-            # bugs -> O(1) divergence or NaNs) clears it by >3 orders.
-            bound = 1e-3
-        elif name.endswith("_1step"):
-            bound = 1e-4
-        else:
-            bound = 2e-3
-        ok = bool((err < bound) and __import__("numpy").isfinite(acc).all())
-        rec = {"scene": name, "rel_err": float(f"{err:.3e}"),
-               "bound": bound, "ok": ok}
-        records.append(rec)
-        print(json.dumps(rec))
+
+def compare(accel, cpu):
+    """Per-scene records + verdict from {name: trajectory} dicts."""
+    import numpy as np
+
+    records, failures = [], []
+    for name, _ in SCENES:
+        ref = cpu[name]
+        acc = accel[name]
+        scale = max(np.abs(ref).max(), 1e-9)
+        err = float(np.abs(acc - ref).max() / scale)
+        bound = bound_for(name)
+        ok = bool(err < bound and np.isfinite(acc).all())
+        records.append({"scene": name, "rel_err": err, "bound": bound,
+                        "ok": ok})
         if not ok:
             failures.append(name)
     verdict = {"crossval": "FAIL" if failures else "PASS",
                "n_scenes": len(SCENES)}
     if failures:
         verdict["scenes"] = failures
+    return records, verdict
+
+
+def main():
+    import argparse
+    import tempfile
+
+    import numpy as np
+
+    if os.environ.get("CROSSVAL_CHILD"):
+        cpu_reference(os.environ["CROSSVAL_CHILD"])
+        return
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", type=str, default=None,
+                    help="write the per-scene records to this JSON file")
+    args = ap.parse_args()
+
+    from admm_elastic_tpu.utils.device import require_gpu, setup_compile_cache
+
+    setup_compile_cache()
+    device = require_gpu()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "crossval_cpu.npz")
+        child = start_cpu_reference(out)
+        accel = {name: run_scene(**kw) for name, kw in SCENES}
+        if child.wait(timeout=1800) != 0:
+            raise SystemExit("CPU reference child failed")
+        cpu = dict(np.load(out))
+    records, verdict = compare(accel, cpu)
+    for rec in records:
+        print(json.dumps(rec))
+    verdict["device"] = device
     print(json.dumps(verdict))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"scenes": records, **verdict}, f, indent=1)
-    if failures:
+    if verdict["crossval"] != "PASS":
         sys.exit(1)
 
 

@@ -4,14 +4,14 @@
 // against the unmodified reference sources (compiled from /root/reference,
 // with the missing mcloptlib/mclscene submodule surface provided by the
 // shim headers in mcl_shim/). Reports steps/s and ADMM iterations/s plus a
-// final-position checksum so the TPU build can be trajectory-checked
+// final-position checksum so this system's build can be trajectory-checked
 // against the same scene.
 //
 // Usage: ref_driver [nx ny nz] [admm_iters] [n_steps] [model 0=linear 1=nh 2=stvk 3=cloth] [dumpfile]
 // model 3 ignores nz and builds an (nx x ny) triangle sheet in the xz
 // plane (y=0), corners at x=0 pinned, with the default strain limits.
 // With a dumpfile, writes the full per-step trajectory (n_steps x dof
-// doubles, raw little-endian) for trajectory-parity checks against the TPU
+// doubles, raw little-endian) for trajectory-parity checks against this
 // build.
 
 #include <algorithm>
@@ -84,7 +84,7 @@ static void make_beam(int nx, int ny, int nz, std::vector<double>& verts,
 // swept around the ring in n_ring wrapping segments of hexes, 5 tets each
 // — matches admm_elastic_tpu.geometry.factory.make_tet_torus (an
 // IRREGULAR mesh for the solver: the ring wrap breaks the lattice
-// stencil, so the TPU build runs its gather path here).
+// stencil, so this system's build runs its gather path here).
 static void make_torus(int n_ring, int n_sec, std::vector<double>& verts,
                        std::vector<int>& tets) {
   if (n_ring % 2 != 0) n_ring += 1;
@@ -276,7 +276,7 @@ int main(int argc, char** argv) {
     // Mesh-obstacle accuracy scene: a unit soft cube dropped onto a
     // tet-meshed slab through the reference's exact BVH PassiveMesh path
     // (PassiveObject.hpp:67-107: point-in-tet test + nearest-surface-
-    // triangle projection). The TPU build runs the same scene through its
+    // triangle projection). This system runs the same scene through its
     // voxel-SDF PassiveMeshSDF at several resolutions to quantify the
     // redesign's accuracy envelope (tests/test_parity.py).
     make_beam(nx, ny, nz, verts, tets);
@@ -390,7 +390,7 @@ int main(int argc, char** argv) {
     for (int v = 0; v < (ny + 1) * (ny + 1); ++v) pins.push_back(v);
     solver.set_pins(pins);
   } else if (model == 7) {
-    // Pin the bottom band (the bunny's feet), matching the TPU-side
+    // Pin the bottom band (the bunny's feet), matching this system's
     // scene (tests/test_parity.py / benchmarks/crossval.py kind=bunny).
     double ylo = 1e300;
     for (int v = 0; v < n_verts; ++v) ylo = std::min(ylo, verts[v * 3 + 1]);
@@ -444,7 +444,7 @@ int main(int argc, char** argv) {
     dump = fopen(dumpfile, "wb");
   } else {
     // Warmup only for timing runs (keeps dumped trajectories aligned with
-    // the TPU build, which dumps from step 0).
+    // this system's build, which dumps from step 0).
     solver.step();
   }
 

@@ -183,7 +183,7 @@ def test_uzawa_auto_picks_sparse_for_big_meshes():
 
 
 def test_floor_contact_alpcg():
-    """The TPU-native AL-PCG hard-contact mode (ls=4) must settle on the
+    """The AL-PCG hard-contact mode (ls=4) must settle on the
     floor like GS/Uzawa; pre-contact it tracks GS to roundoff (same A, b)."""
     solver = drop_box_solver(linsolver=4)
     gs = drop_box_solver(linsolver=1)
@@ -345,7 +345,7 @@ def test_boxes_stack_gs():
 
 
 def test_uzawa_floor_contact_f32():
-    """f32 Uzawa must hold the floor (regression: an XLA:TPU fusion bug
+    """f32 Uzawa must hold the floor (regression: an accelerator fusion bug
     zeroed Floor normals built with zeros().at[...,1].set(1.0) and bodies
     tunneled straight through; constant-broadcast normals fix it)."""
     import jax.numpy as jnp

@@ -2,7 +2,7 @@
 
 Builds the unmodified reference sources (benchmarks/build_reference.sh,
 with shim headers for the missing submodules), runs the beam scene, and
-compares full per-step trajectories with the TPU build in f64:
+compares full per-step trajectories with this build in f64:
 
 - linear tets use the identical closed-form prox + an exact global solve
   on both sides, so trajectories must agree to solver roundoff,

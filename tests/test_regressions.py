@@ -68,11 +68,13 @@ def test_gather_table_isolated_vertices():
 
 
 def test_direct_inv_precision_policy():
-    """The inv-mode MXU precision tier is pinned-gated (solvers/direct.py):
-    HIGH's 3-pass apply (one-apply rel err 1.1e-5, precision_lab) is only
-    taken where the pin-row polish backs it; unpinned systems keep the
-    6-pass HIGHEST because their bare-mass modes amplify apply error
-    exponentially across steps (Solver._refine_eff)."""
+    """The inv-mode f32 product runs at Precision.HIGHEST for pinned and
+    unpinned systems alike (solvers/direct.py): the GPU's lower tier
+    (TF32) misses the 1.1e-5 one-apply bound (chip_smoke.py kernels
+    phase), and unpinned systems' bare-mass modes amplify apply error
+    across steps (Solver._refine_eff)."""
+    import jax
+
     from admm_elastic_tpu.solvers import direct as direct_mod
 
     rng = np.random.default_rng(3)
@@ -80,10 +82,16 @@ def test_direct_inv_precision_policy():
     a = q @ q.T + 8.0 * np.eye(8)
     pin_rows = (np.array([0]), np.array([[1, 2]]),
                 np.array([[0.1, 0.2]]), np.array([a[0, 0]]))
-    assert direct_mod.prepare(a, np.float32, mode="inv",
-                              pin_rows=pin_rows).prec == "high"
-    assert direct_mod.prepare(a, np.float32, mode="inv",
-                              pin_rows=None).prec == "highest"
-    # cho mode never takes the emulated-matmul path at all.
-    assert direct_mod.prepare(a, np.float32, mode="cho",
-                              pin_rows=None).prec == "highest"
+    b = jnp.asarray(rng.standard_normal((8, 3)), jnp.float32)
+    for rows in (pin_rows, None):
+        data = direct_mod.prepare(a, np.float32, mode="inv", pin_rows=rows)
+        jaxpr = jax.make_jaxpr(direct_mod.solve)(data, b)
+        precs = [e.params["precision"] for e in jaxpr.eqns
+                 if e.primitive.name == "dot_general"]
+        assert precs and all(
+            p in (jax.lax.Precision.HIGHEST,
+                  (jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST))
+            for p in precs), precs
+        x = np.asarray(direct_mod.solve(data, b), np.float64)
+        np.testing.assert_allclose(x, np.linalg.solve(a, np.asarray(b)),
+                                   rtol=1e-5, atol=1e-6)

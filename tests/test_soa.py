@@ -1,4 +1,4 @@
-"""SoA (TPU-layout) kernels must match the AoS reference implementations."""
+"""SoA-layout kernels must match the AoS reference implementations."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -2,7 +2,7 @@
 src/SolverLog.hpp:36-64, hooked into every LinearSolver::solve at
 src/NodalMultiColorGS.hpp:61,135,144 and src/UzawaCG.hpp:59,112,122).
 
-The TPU redesign records the whole curve as fixed-length scan outputs
+The redesign records the whole curve as fixed-length scan outputs
 from one run (solver.step_logged / Settings.log_inner) instead of
 per-iteration host callbacks.
 """

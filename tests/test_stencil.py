@@ -7,6 +7,7 @@ end-to-end by trajectory equality of stencil vs forced-gather solvers.
 """
 
 import numpy as np
+import pytest
 
 from admm_elastic_tpu.geometry.factory import make_tet_blocks
 from admm_elastic_tpu.materials import Lame
@@ -75,6 +76,47 @@ def test_flat_stencil_dt_matches_gather():
                                         ref.Dlocal, n, gi))
     dt_flat = np.asarray(stencil.tet_Dt_rows(jnp.asarray(g_flat), flat, n))
     np.testing.assert_allclose(dt_flat, dt_ref, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("dims,off", [((5, 4, 3), 0), ((4, 2, 2), 11)])
+def test_flat_stencil_dx_matches_gather_at_lattice(dims, off):
+    """D x at lattices with and without a vertex offset, incl. the
+    identity F on every dead (padded) lane."""
+    import jax.numpy as jnp
+
+    flat, ref, plan, x, _ = _tet_batches(*dims, off=off, n_extra=3)
+    xd = jnp.asarray(x)
+    rows = np.asarray(stencil.tet_Dx_rows(xd, flat))
+    live = plan.src >= 0
+    np.testing.assert_allclose(
+        rows[:, live],
+        np.asarray(red.tet_Dx_rows(xd, ref.inds, ref.Dlocal))[:, plan.src[live]],
+        rtol=1e-12, atol=1e-12)
+    dead = rows[:, ~live]
+    np.testing.assert_array_equal(dead[[0, 4, 8]], 1.0)
+    np.testing.assert_array_equal(dead[[1, 2, 3, 5, 6, 7]], 0.0)
+
+
+@pytest.mark.parametrize("dims,off", [((5, 4, 3), 0), ((4, 2, 2), 11)])
+def test_flat_stencil_rhs_matches_gather_at_lattice(dims, off):
+    """The rhs elastic term D^T W^2 (z - u) (src/Solver.cpp:98) through
+    the stencil vs the gather path; dead lanes carry w^2 = 0."""
+    import jax.numpy as jnp
+
+    from admm_elastic_tpu.system import system as sysm
+
+    flat, ref, plan, _, n = _tet_batches(*dims, off=off, n_extra=3)
+    rng = np.random.default_rng(7)
+    z_ref = rng.standard_normal((9, ref.n))
+    u_ref = rng.standard_normal((9, ref.n))
+    live = plan.src >= 0
+    z_flat = rng.standard_normal((9, flat.n))  # dead lanes: arbitrary
+    u_flat = rng.standard_normal((9, flat.n))
+    z_flat[:, live] = z_ref[:, plan.src[live]]
+    u_flat[:, live] = u_ref[:, plan.src[live]]
+    got = np.asarray(sysm._tet_DtW2(flat, jnp.asarray(z_flat - u_flat), n))
+    want = np.asarray(sysm._tet_DtW2(ref, jnp.asarray(z_ref - u_ref), n))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
 
 
 def test_flat_stencil_offset_family():
@@ -155,9 +197,9 @@ def test_ring_stencil_full_step_trajectory_matches(monkeypatch):
 
     def run(use_stencil, monkeypatch):
         if not use_stencil:
-            monkeypatch.setenv("ADMM_TPU_NO_STENCIL", "1")
+            monkeypatch.setenv("ADMM_NO_STENCIL", "1")
         else:
-            monkeypatch.delenv("ADMM_TPU_NO_STENCIL", raising=False)
+            monkeypatch.delenv("ADMM_NO_STENCIL", raising=False)
         mesh = make_tet_torus(n_ring=10, n_sec=4)
         mesh.flags = binding.NOSELFCOLLISION | binding.NEOHOOKEAN
         s = Solver()
@@ -226,11 +268,11 @@ def _tri_batches(tris, verts, off=0):
     flat = el.build_tri_batch(verts, tris, lame, vertex_offset=off)
     import os
 
-    os.environ["ADMM_TPU_NO_STENCIL"] = "1"
+    os.environ["ADMM_NO_STENCIL"] = "1"
     try:
         ref = el.build_tri_batch(verts, tris, lame, vertex_offset=off)
     finally:
-        del os.environ["ADMM_TPU_NO_STENCIL"]
+        del os.environ["ADMM_NO_STENCIL"]
     assert flat.stencil is not None and ref.stencil is None
     plan = stencil.tri_flat_plan(tris, flat.stencil)
     return flat, ref, plan
@@ -305,9 +347,9 @@ def test_tri_stencil_full_step_trajectory_matches(monkeypatch):
 
     def run(use_stencil, monkeypatch):
         if not use_stencil:
-            monkeypatch.setenv("ADMM_TPU_NO_STENCIL", "1")
+            monkeypatch.setenv("ADMM_NO_STENCIL", "1")
         else:
-            monkeypatch.delenv("ADMM_TPU_NO_STENCIL", raising=False)
+            monkeypatch.delenv("ADMM_NO_STENCIL", raising=False)
         nx = ny = 6
         verts = np.array(
             [[i, 0.0, j] for i in range(nx + 1) for j in range(ny + 1)],
